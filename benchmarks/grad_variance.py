@@ -1,4 +1,4 @@
-"""Gradient-variance study for the differentiable estimator family (VERDICT r4 #7).
+"""Gradient-variance study for the differentiable estimator family.
 
 Two artifacts ``docs/guide_autodiff.md`` promises:
 
@@ -117,6 +117,9 @@ def scale_wall(n: int = 1_000_000, deg: int = 20, nv: int = 256, chunk: int = 32
 
 
 if __name__ == "__main__":
+	from benchmarks.cache import enable_compile_cache
+
+	enable_compile_cache()
 	spread_study()
 	structured_study()
 	scale_wall(nv=64)

@@ -1,7 +1,7 @@
 """Locally-built irregular benchmark matrices (BASELINE config 3 realism).
 
 BASELINE config 3 names "SuiteSparse SPD matrices" — unreachable here (zero
-egress), so these generators build the closest honest local analogs (VERDICT
+egress), so these generators build the closest honest local analogs (
 r3 #8), spanning the sparsity-structure axes that drive SpMM behavior:
 
   * ``powerlaw_laplacian`` — graph Laplacian of a preferential-attachment

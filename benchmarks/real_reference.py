@@ -3,8 +3,8 @@
 Round-2 verdict asked for a head-to-head against the *compiled* reference
 rather than a numpy stand-in. The stock build chain is unavailable here (no
 meson-python/pythran/pip-installable pybind11, `extern/eigen` is an empty
-submodule, zero network egress) — but the toolchain gap is only HEADERS, and
-both live elsewhere in this image:
+submodule, no network) — but the toolchain gap is only HEADERS, and both
+ship inside common wheels:
 
   * Eigen   — TensorFlow wheels vendor the full Eigen tree under
               `tensorflow/include/Eigen` (found in the uv wheel cache).
@@ -14,8 +14,9 @@ both live elsewhere in this image:
 So `_lanczos.cpp` (the reference's ONLY required native module) compiles with
 plain g++ against those, and the package imports: `tqli.py`/`fttr.py` are
 valid numpy Python before Pythran transpilation, and the meson step adds
-nothing else. The build lands in a cache directory OUTSIDE this repo (no
-reference code is copied into the repo) and is reused across runs.
+nothing else. The reference sources are read from ``PRIMATE_REF_SRC`` (none
+is copied into the repo); the build lands in the git-ignored
+``benchmarks/.ref_build`` and is reused across runs.
 
 `real_slq_logdet` then runs the reference's own
 ``hutch(MatrixFunction(A, "log"), ...)`` — its genuine C++ Lanczos recurrence
@@ -32,8 +33,10 @@ import time
 from pathlib import Path
 from typing import Optional
 
-REF_SRC = Path("/root/reference/src/primate")
-CACHE = Path(os.environ.get("PRIMATE_REF_BUILD", os.path.expanduser("~/.cache/primate_ref_build")))
+# The reference's Python package sources (``src/primate`` of a scikit-primate
+# checkout); unset means no real-reference baseline.
+REF_SRC = Path(os.environ["PRIMATE_REF_SRC"]) if os.environ.get("PRIMATE_REF_SRC") else None
+CACHE = Path(os.environ.get("PRIMATE_REF_BUILD", Path(__file__).resolve().parent / ".ref_build"))
 
 _BUILT: Optional[bool] = None
 
@@ -80,7 +83,7 @@ def build() -> bool:
 		ext = f"_lanczos{sysconfig.get_config_var('EXT_SUFFIX')}"
 		if not (pkg / ext).exists():
 			eigen, pb11 = _find_eigen(), _find_pybind11()
-			if not (REF_SRC.exists() and eigen and pb11):
+			if not (REF_SRC is not None and REF_SRC.exists() and eigen and pb11):
 				return False
 			CACHE.mkdir(parents=True, exist_ok=True)
 			so_tmp = CACHE / f"{ext}.{os.getpid()}.tmp"

@@ -1,4 +1,4 @@
-"""Decompose the emulated sharded-SLQ overhead (VERDICT r4 item 1).
+"""Decompose the emulated sharded-SLQ overhead.
 
 The round-4 paired scaling table put weak-8dev overhead efficiency at 0.60:
 40% of the single-core emulated wall is program structure added by sharding.
@@ -147,4 +147,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+	from benchmarks.cache import enable_compile_cache
+
+	enable_compile_cache()
 	main()

@@ -1,6 +1,6 @@
-"""primate_tpu — TPU-native stochastic spectral estimation.
+"""primate_tpu — accelerator-native stochastic spectral estimation.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 `peekxc/primate` (probabilistic implicit matrix trace/diagonal estimation):
 
   * trace estimators: Girard-Hutchinson (`hutch`), Hutch++, XTrace
@@ -10,12 +10,12 @@ A from-scratch JAX/XLA/Pallas framework with the capabilities of
   * implicit matrix functions `f(A)` (`MatrixFunction`) for logdet, exp, inv,
     Schatten norms, numerical rank, heat-kernel signatures
   * composable adaptive stopping criteria evaluated **on-device**
-  * sparse CSR/COO/BSR operators with Pallas SpMM kernels
+  * sparse CSR/COO/BSR/DIA operators (XLA gather, ELL and stencil SpMM)
   * multi-chip scaling via `jax.sharding` row-partitioned operators
 
 Everything in the compute path is jittable: estimators compile to a single
 fused device program (`lax.while_loop` over batched Lanczos sweeps), probes
-are batched into GEMM/SpMM on the MXU, and randomness is stateless threefry.
+are batched into GEMM/SpMM, and randomness is stateless threefry.
 """
 
 __version__ = "0.4.0"

@@ -12,7 +12,7 @@ operator**: each step is one ``A`` apply and one ``Aᵀ`` apply, and the
 Lanczos-bidiagonalization quadrature on Gram spectra (Golub & Meurant,
 "Matrices, Moments and Quadrature").
 
-TPU-first: all nv probes advance together, state is carried PROBE-MAJOR
+Accelerator-first: all nv probes advance together, state is carried PROBE-MAJOR
 (``(nv, n)`` / ``(nv, m)`` blocks, contiguous operator axis on vector lanes)
 and the operator applies through ``matmat_t`` / ``rmatmat_t`` — the same
 layout discipline as `lanczos._lanczos_core`.

@@ -21,7 +21,7 @@ Why it earns its keep:
     analog of the scalar rule ``vᵀf(A)v ≈ ‖v‖² e₁ᵀf(J)e₁`` the estimators
     are built on, with lower quadrature bias at equal degree because each
     column's approximation error is governed by the *block* space.
-  * **TPU shape**: every step is two (n, b) GEMMs + one thin QR — MXU work,
+  * **Accelerator shape**: every step is two (n, b) GEMMs + one thin QR — GEMM work,
     no per-column seriality.
 
 All hot paths are jitted `lax.scan`s; the full basis is carried in a

@@ -5,7 +5,7 @@ Van Dooren 2023, "Computing Gaussian quadrature rules with high relative
 accuracy"). O(1)-space alternative to Golub-Welsch when only weights are
 needed and ``deg`` is large.
 
-TPU-first: the polynomial recurrence is a `lax.scan` over the degree, vmapped
+Accelerator-first: the polynomial recurrence is a `lax.scan` over the degree, vmapped
 over all quadrature nodes at once (the reference loops nodes serially); batched
 Jacobi matrices add one more vmap axis. Accumulation is float32+.
 """

@@ -3,7 +3,7 @@
 Parity: reference ``src/primate/integrate.py`` (`quadrature` with Golub-Welsch
 and FTTR weight computation).
 
-TPU-first: both methods are batched over a leading probe axis — the Lanczos
+Accelerator-first: both methods are batched over a leading probe axis — the Lanczos
 sweep produces nv Jacobi matrices at once, and the nodes/weights for all of
 them come from one batched `jnp.linalg.eigh` (Golub-Welsch) or one vmapped
 recurrence scan (FTTR). Everything is jittable, so stochastic Lanczos
@@ -88,7 +88,7 @@ def _solve_shifted(d: jnp.ndarray, e: jnp.ndarray, rhs_last: jnp.ndarray, shift)
 	"""Solve ``(J(d, e) − shift·I) x = rhs_last · e_k`` batched; returns ``x_k``.
 
 	The Jacobi matrices are tiny (deg ≲ 100) and arrive in probe batches, so a
-	dense batched solve is the TPU-natural route (same reasoning as the
+	dense batched solve is the device-natural route (same reasoning as the
 	densify+eigh tridiagonal eigensolver in `tridiag.py`).
 	"""
 	from .tridiag import tridiag_matrix

@@ -12,8 +12,8 @@ Gibbs oscillations. Complements SLQ: cheaper per step (no reorth window),
 deterministic degree/accuracy trade-off via Chebyshev coefficients, and the
 natural choice when ``f`` is smooth on the whole spectral interval.
 
-TPU shape: the moment recurrence is a `lax.scan` carrying two (n, nv)
-blocks; all nv probes and all moments stream through the MXU/VPU together.
+Accelerator shape: the moment recurrence is a `lax.scan` carrying two (n, nv)
+blocks; all nv probes and all moments stream through the device together.
 """
 
 from functools import partial

@@ -4,20 +4,20 @@ Parity: reference C++ kernel ``src/primate/include/lanczos.h:89-148``
 (`lanczos_recurrence`, Paige's A27 variant) and Python API
 ``src/primate/lanczos.py:25-164`` (`lanczos`, `rayleigh_ritz`).
 
-TPU-first design (NOT a translation of the C++ loop):
+Accelerator design (NOT a translation of the C++ loop):
   * The reference runs one serial three-term recurrence per probe vector behind
     an FFI boundary. Here **all nv probes advance together**: the Krylov step is
-    one operator application on an ``(n, nv)`` block — a single GEMM/SpMM on the
-    MXU per Lanczos step — and the α/β updates are batched reductions on the VPU.
+    one operator application on an ``(n, nv)`` block — a single GEMM/SpMM per
+    Lanczos step — and the α/β updates are batched reductions.
   * The recurrence itself is a `lax.scan` over ``deg`` steps (Lanczos is
     inherently sequential in the degree; all parallelism comes from the probe
-    block and from sharding the ``n`` axis across chips).
+    block and from sharding the ``n`` axis across devices).
   * The reference's ring buffer of ``ncv`` basis vectors with cyclic index
     rotation (`lanczos.h:113-147`) becomes a ``(ncv, n, nv)`` carry written with
     `lax.dynamic_update_index_in_dim`; selective re-orthogonalization against
     the last ``orth`` vectors is a **masked classical Gram-Schmidt** — two
-    batched matmuls per pass (CGS2 by default, which is both more stable and
-    more MXU-friendly than the reference's serial MGS sweep,
+    batched reductions per pass (CGS2 by default, which is both more stable and
+    more parallel than the reference's serial MGS sweep,
     `lanczos.h:43-66`).
   * Early exit on an invariant subspace (β ≤ √n·rtol, `lanczos.h:139-141`)
     cannot break out of a traced loop, so each probe carries a ``done`` flag
@@ -71,7 +71,7 @@ def _validate_params(n: int, deg: int, orth: int, ncv: Optional[int], return_bas
 	return deg, orth, ncv
 
 
-@partial(jax.jit, static_argnames=("deg", "ncv", "orth", "reorth_passes", "return_basis", "basis_dtype", "selective", "phys"))
+@partial(jax.jit, static_argnames=("deg", "ncv", "orth", "reorth_passes", "return_basis", "basis_dtype", "selective"))
 def lanczos_block_op(
 	op,
 	V0: jnp.ndarray,
@@ -84,7 +84,6 @@ def lanczos_block_op(
 	coeffs: Optional[jnp.ndarray] = None,
 	basis_dtype=None,
 	selective: bool = False,
-	phys: Optional[bool] = None,
 ) -> LanczosOutput:
 	"""`lanczos_block` with the operator as a PYTREE argument.
 
@@ -94,47 +93,10 @@ def lanczos_block_op(
 	callable's identity — a bound method pins the cache to one instance and
 	bakes its arrays into the executable as constants.
 
-	``phys`` controls the halo-padded probe-major carry for operators that
-	advertise one (`DIAOperator.phys_spec`): the whole sweep state lives in the
-	Pallas stencil kernel's native layout, so consecutive applications chain
-	with ZERO per-step repacking. The kernel beats XLA's stencil in an isolated
-	dependent chain (1.47×/1.83×/2.36× at 3/5/9 diagonals, 64×500k f32 on v5e)
-	— but INSIDE the sweep XLA fuses the stencil with the β-axpy and the α
-	reduction, which a pallas_call cannot join, so end-to-end the two paths
-	measure within ±2% (see benchmarks/RESULTS.md). Default is therefore the
-	fused XLA path; ``phys`` engages on an explicit ``use_pallas=True``
-	operator or ``phys=True`` (interpreter off-TPU — for tests). Zeros in the
-	padding lanes are invariant under the recurrence, so (α, β) match the flat
-	layout to roundoff (reductions see extra zero lanes).
+	The operator's apply is traced into the scan step, so XLA fuses it with
+	the recurrence's β-axpy and α-reduction (the reason the stencil stays
+	plain XLA: a custom kernel call cannot join that fusion).
 	"""
-	n, nv = V0.shape
-	spec = None
-	engage = (phys is True) or (phys is None and getattr(op, "use_pallas", None) is True)
-	if engage and hasattr(op, "phys_spec"):
-		interpret = bool(phys) and jax.default_backend() != "tpu"
-		spec = op.phys_spec(nv, interpret=interpret)
-	if phys is True and spec is None:
-		import warnings
-
-		warnings.warn(
-			"phys=True requested but the operator is ineligible for the padded-"
-			"carry kernel path (needs phys_spec: real dtype, |offset| <= 128, "
-			"nv % 8 == 0) — running the flat XLA sweep instead.",
-			stacklevel=2,
-		)
-	if spec is not None:
-		n_phys, lo = spec
-		V0p = jnp.zeros((n_phys, nv), V0.dtype).at[lo : lo + n].set(V0)
-		out = _lanczos_core(
-			op.matmat, V0p, deg=deg, ncv=ncv, orth=orth, rtol=rtol, reorth_passes=reorth_passes,
-			return_basis=return_basis, coeffs=coeffs, basis_dtype=basis_dtype,
-			matmat_t=partial(op.matmat_t_phys, interpret=interpret), selective=selective,
-			residual_n=n,
-		)
-		return out._replace(
-			Q=out.Q[:, lo : lo + n, :] if out.Q is not None else None,
-			y=out.y[..., lo : lo + n, :] if out.y is not None else None,
-		)
 	return _lanczos_core(
 		op.matmat, V0, deg=deg, ncv=ncv, orth=orth, rtol=rtol, reorth_passes=reorth_passes,
 		return_basis=return_basis, coeffs=coeffs, basis_dtype=basis_dtype,
@@ -215,7 +177,6 @@ def _lanczos_core(
 	basis_dtype=None,
 	matmat_t: Optional[Callable[[jnp.ndarray], jnp.ndarray]] = None,
 	selective: bool = False,
-	residual_n: Optional[int] = None,
 ) -> LanczosOutput:
 	n, nv = V0.shape
 	dtype = V0.dtype
@@ -234,10 +195,10 @@ def _lanczos_core(
 	keep_window = return_basis or orth > 0 or selective
 
 	# The whole sweep runs PROBE-MAJOR: state is (nv, n), window (ncv, nv, n).
-	# With the contiguous n axis on vector lanes, no array pads its lane
-	# dimension regardless of the probe count — an (n, nv) node-major block with
-	# nv < 128 pads every tile to 128 lanes, which measured ~4x per-step cost on
-	# chip for the standard 64-probe sweep. Operators apply via ``matmat_t``
+	# The contiguous axis is n, so no array's minor dimension depends on the
+	# probe count (kept from the first accelerator this library targeted,
+	# where narrow node-major blocks padded badly; the layout is unmeasured on
+	# the GPU). Operators apply via ``matmat_t``
 	# (probe-major stencils/GEMMs where natural, transpose-wrapped ``matmat``
 	# otherwise); outputs transpose back at exit, amortized over all deg steps.
 	if matmat_t is None:
@@ -249,9 +210,7 @@ def _lanczos_core(
 	else:
 		norm0 = jnp.sqrt(jnp.sum(V0t.astype(acc_dtype) ** 2, axis=1))
 	q0 = (V0t / jnp.where(norm0 > 0, norm0, 1)[:, None].astype(dtype)).astype(dtype)
-	# √n early-exit scale uses the LOGICAL dimension when the carry is padded
-	# (zeros in the padding lanes contribute nothing to any norm).
-	residual_tol = jnp.sqrt(jnp.asarray(residual_n if residual_n is not None else n, r_dtype)) * jnp.asarray(rtol, r_dtype)
+	residual_tol = jnp.sqrt(jnp.asarray(n, r_dtype)) * jnp.asarray(rtol, r_dtype)
 
 	Q_win = jnp.zeros((ncv, nv, n), b_dtype).at[0].set(q0.astype(b_dtype)) if keep_window else jnp.zeros((0,), b_dtype)
 	# coeffs (deg, nv) — or (deg, ..., nv) for a STACKED family of expansions
@@ -263,7 +222,7 @@ def _lanczos_core(
 	# where max|ω| crosses √eps — long stretches of a well-behaved sweep skip
 	# the window traffic entirely. (The reference has no analog: its C++ loop
 	# re-orthogonalizes unconditionally, `lanczos.h:132-136`.)
-	eps_noise = jnp.asarray(float(jnp.finfo(r_dtype).eps) * np.sqrt(residual_n if residual_n is not None else n), r_dtype)
+	eps_noise = jnp.asarray(float(jnp.finfo(r_dtype).eps) * np.sqrt(n), r_dtype)
 	sel_tol = jnp.sqrt(jnp.asarray(float(jnp.finfo(r_dtype).eps), r_dtype))
 	om0 = jnp.zeros((nv, ncv), r_dtype).at[:, 0].set(1.0) if selective else jnp.zeros((0,), r_dtype)
 	sel0 = (
@@ -274,7 +233,7 @@ def _lanczos_core(
 		jnp.asarray(False),  # force: a breach last step → clean this step too
 	) if selective else ()
 	# (A deferred-normalization carry — (v, β) with q = v/β recomputed in
-	# consumer fusions — was prototyped and measured NEUTRAL on v5e: XLA
+	# consumer fusions — was prototyped and measured neutral: XLA
 	# materializes the shared q subexpression anyway since three fusions
 	# consume it, so the explicit divide pass below costs the same and keeps
 	# the code simpler and bit-stable.)
@@ -366,10 +325,10 @@ def _lanczos_core(
 			age = (j - slot_ids) % ncv
 			valid = ((age < orth) & (age <= j)).astype(r_dtype)  # (ncv,)
 			with jax.named_scope("lanczos_reorth"):  # xprof/trace label (SURVEY §5.1)
-				# Broadcast-multiply + lane-axis reductions, NOT dot_general:
+				# Broadcast-multiply + reductions over n, NOT dot_general:
 				# the contraction over n with the probe axis as batch
-				# lowers to per-probe GEMVs on the MXU (slow); as
-				# elementwise+reduce it streams the window on the VPU.
+				# lowers to per-probe GEMVs; as elementwise+reduce it
+				# streams the window once.
 				# Q_win is used at its storage dtype — mixed-dtype multiply
 				# promotes inside the fusion, so no materialized f32 copy
 				# of the (ncv, nv, n) window per step.

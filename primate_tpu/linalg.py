@@ -3,11 +3,11 @@
 Parity: reference ``src/primate/linalg.py`` (`update_trinv`, the incremental
 upper-triangular inverse behind XTrace's leave-one-out identities).
 
-TPU-first restructuring: the reference appends **one column at a time** via
+Accelerator restructuring: the reference appends **one column at a time** via
 `scipy.qr_insert` + a rank-one triangular-inverse update (`trace.py:298-301`) —
 inherently host-serial. Here the same math is done **block-wise**: a batch of
 ``b`` new columns is orthogonalized against the current basis with two passes of
-classical Gram-Schmidt (CGS2 — two GEMMs, MXU-friendly, and more stable than a
+classical Gram-Schmidt (CGS2 — two GEMMs, GEMM-shaped, and more stable than a
 single MGS sweep), then QR'd locally; the triangular inverse updates by a
 block-triangular identity. Both are pure jnp and jit per (m, b) shape.
 """
@@ -24,8 +24,8 @@ __all__ = ["update_trinv", "update_trinv_block", "qr_append", "colwise_dot", "ta
 
 def _hiprec(fn):
 	"""Trace the wrapped function under full matmul precision: the QR-append /
-	triangular-inverse identities are EXACT algebra — TPU's default bf16 matmul
-	precision breaks xtrace's m = n exactness (3e-3 instead of ~1e-6)."""
+	triangular-inverse identities are EXACT algebra — a reduced-precision
+	default (bf16 passes, or TF32 on the GPU) breaks xtrace's m = n exactness."""
 
 	@functools.wraps(fn)
 	def wrapped(*a, **k):
@@ -41,9 +41,9 @@ def _shifted_cholqr3(Y: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 	three m×m Choleskys + triangular solves — all GEMM-shaped, no Householder
 	panel recursion.
 
-	XLA's Householder QR of a (262144, 192) f32 block costs 88.6 ms on a v5e;
-	this runs in ~4 ms at the same measured orthogonality error (4.8e-5 vs
-	4.6e-5). The first Cholesky is shifted by ``s = 11(nm + m(m+1))·ε·‖G‖``
+	Replaces XLA's Householder QR of tall blocks (e.g. (262144, 192) f32) at
+	the same orthogonality error; its speed on the GPU is not measured yet.
+	The first Cholesky is shifted by ``s = 11(nm + m(m+1))·ε·‖G‖``
 	so it cannot break down (valid for κ(Y) up to ~1/ε); the two plain
 	CholeskyQR passes that follow restore orthogonality to O(ε).
 	"""
@@ -74,8 +74,8 @@ def _shifted_cholqr3(Y: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 
 def tall_qr(Y: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 	"""Thin QR, dispatched by aspect ratio: shifted CholeskyQR3 for tall
-	blocks (n ≥ 8m — the estimator-sketch regime where Householder QR is
-	20× slower on TPU), ``jnp.linalg.qr`` otherwise."""
+	blocks (n ≥ 8m — the estimator-sketch regime, where Householder QR's
+	panel recursion is the slow shape), ``jnp.linalg.qr`` otherwise."""
 	n, m = Y.shape
 	if m == 0 or n < 8 * m:
 		return jnp.linalg.qr(Y, mode="reduced")
@@ -129,7 +129,7 @@ def qr_append(
 	Block Gram-Schmidt: project ``Y`` off ``span(Q)`` (``reorth_passes`` CGS
 	sweeps, each two GEMMs), QR the remainder, and assemble the bordered ``R``.
 	Equivalent to ``b`` successive `qr_insert` calls, but runs as a handful of
-	MXU matmuls instead of a serial column loop.
+	batched matmuls instead of a serial column loop.
 	"""
 	Y = jnp.asarray(Y)
 	if Q is None or Q.shape[1] == 0:

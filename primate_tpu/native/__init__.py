@@ -1,7 +1,7 @@
 """Native (C++) sparse-prep runtime: device-layout conversion off the compute path.
 
 Role parity with the reference's native layer (`src/primate/include/*.h`,
-meson-built): on TPU all *compute* lives in XLA/Pallas, so the native code's
+meson-built): all *compute* lives in XLA, so the native code's
 job is the **data loader** — turning huge host CSR matrices into device-ready
 tiled BSR / banded DIA layouts in one pass, without scipy's intermediate
 copies. Compiled lazily with the system toolchain (g++ -O3) into a cached

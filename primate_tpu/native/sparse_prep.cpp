@@ -2,7 +2,7 @@
 //
 // Role parity: the reference's native layer (Eigen operator wrappers +
 // meson-built extensions, src/primate/include/eigen_operators.h,
-// src/primate/meson.build). In the TPU build all *compute* is XLA/Pallas;
+// src/primate/meson.build). In this build all *compute* is XLA;
 // what remains host-side is the data loader / format converter that feeds
 // device-ready layouts: CSR -> tiled BSR (dense (bm x bn) blocks, padded
 // grid, empty-row coverage) and CSR -> row-aligned DIA bands. For the 10M+

@@ -1,7 +1,7 @@
 // C ABI of the primate_tpu native sparse-prep runtime (see sparse_prep.cpp).
 //
 // Role parity: the reference ships C++ headers for downstream extensions
-// (`primate.get_include()`, src/primate/__init__.py:17-38). In the TPU build
+// (`primate.get_include()`, src/primate/__init__.py:17-38). In this build
 // the extension point for *compute* is the Python operator protocol (any
 // jittable callable); this header covers the host-side data-path ABI so
 // external loaders can feed device-ready BSR/DIA layouts directly.
@@ -19,8 +19,7 @@ extern "C" {
 #endif
 
 // CSR -> tiled BSR on the ceil-padded block grid; one zero "coverage" block
-// per empty block-row so every output tile of the Pallas SpMM kernel is
-// written. Returns total stored blocks (nnzb).
+// per empty block-row so every block-row owns at least one stored block. Returns total stored blocks (nnzb).
 int64_t bsr_count(int64_t n_rows, int64_t n_cols, int64_t bm, int64_t bn,
                   const int64_t* indptr, const int32_t* indices,
                   int64_t* brow_counts /* ceil(n_rows/bm) */);

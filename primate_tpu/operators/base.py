@@ -5,7 +5,7 @@ Parity: reference C++20 concepts ``src/primate/include/linear_operator.h:25-70``
 AffineOperator), the Eigen wrappers ``include/eigen_operators.h``, and the
 Python-callback bridge ``include/pylinop.h``.
 
-TPU-first: there is no FFI boundary to bridge — *any jittable callable is an
+Accelerator-first: there is no FFI boundary to bridge — *any jittable callable is an
 operator*. The protocol is structural, exactly like the reference's concepts:
 
   * required: ``.shape`` and one of ``matmat(V)`` / ``matvec(v)`` / ``@``;
@@ -42,7 +42,7 @@ __all__ = [
 class LinearOperator:
 	"""Base class for matrix-free symmetric(-friendly) operators.
 
-	Subclasses implement ``_matmat(V)`` on an ``(n, k)`` block (the MXU-shaped
+	Subclasses implement ``_matmat(V)`` on an ``(n, k)`` block (the GEMM-shaped
 	primitive); ``matvec`` derives from it. ``shape``/``dtype`` are aux data.
 	"""
 
@@ -69,9 +69,8 @@ class LinearOperator:
 	def matmat_t(self, Vt: jnp.ndarray) -> jnp.ndarray:
 		"""Probe-major apply: ``(A Vtᵀ)ᵀ`` on a ``(k, n)`` block.
 
-		TPU layout detail: with probes on the *leading* axis, the contiguous
-		``n`` axis maps to vector lanes, so a ``k < 128`` probe block wastes no
-		lane padding — the Lanczos sweep carries its state probe-major and calls
+		Layout detail: with probes on the *leading* axis, the contiguous
+		``n`` axis does not depend on the probe count — the Lanczos sweep carries its state probe-major and calls
 		this per step. The default derives from ``matmat`` via two transposes;
 		operators whose apply is natural in this layout (DIA stencils, dense
 		GEMMs) override it with a zero-transpose version.
@@ -161,7 +160,7 @@ class LinearOperator:
 
 @jax.tree_util.register_pytree_node_class
 class DenseOperator(LinearOperator):
-	"""Dense matrix operator: matvec/matmat are MXU GEMMs.
+	"""Dense matrix operator: matvec/matmat are GEMMs.
 
 	Replaces the reference's ``DenseEigenLinearOperator``
 	(`eigen_operators.h:17-55`).
@@ -175,10 +174,9 @@ class DenseOperator(LinearOperator):
 		self.shape = tuple(self.A.shape)
 		self.dtype = self.A.dtype
 
-	# precision=HIGHEST on all GEMMs: TPU's DEFAULT matmul precision truncates
-	# f32 inputs to bf16 (measured 3.9e-3 relative error on a 1k matvec vs
-	# 1.9e-7 at full precision) — operator applies are the library's accuracy
-	# contract. bf16-dtype operators are unaffected (single native pass).
+	# precision=HIGHEST on all GEMMs: the DEFAULT f32 matmul precision may run
+	# in a reduced format (TF32 on the GPU, ~3 decimal digits) — operator
+	# applies are the library's accuracy contract. bf16-dtype operators are unaffected (single native pass).
 	def _matmat(self, V: jnp.ndarray) -> jnp.ndarray:
 		return jnp.matmul(self.A, V, precision=jax.lax.Precision.HIGHEST)
 
@@ -227,7 +225,7 @@ class FunctionOperator(LinearOperator):
 	C extensions, IO): the apply routes through :func:`jax.pure_callback`, so
 	the operator still composes with the fused jitted estimator programs — the
 	device program pauses at each apply, ships ``V`` to the host, and resumes
-	with the result (the TPU analog of the reference's per-matvec C++→Python
+	with the result (the device analog of the reference's per-matvec C++→Python
 	round trip, `pylinop.h:32-40`). The callable must be pure and is handed
 	numpy arrays.
 	"""
@@ -495,7 +493,7 @@ def is_valid_operator(A: Any) -> jnp.dtype:
 	"""Assert the operator protocol and return its element dtype.
 
 	Parity: reference `operators.py:15-23` (the reference restricts to
-	f32/f64; here bf16 is additionally allowed — it is the native MXU dtype).
+	f32/f64; here bf16 is additionally allowed — it is a native tensor-core dtype).
 	"""
 	assert any(hasattr(A, a) for a in ("__matmul__", "matmul", "dot", "matvec", "matmat")), (
 		"Invalid operator; must have an overloaded 'matvec' or 'matmul' method"

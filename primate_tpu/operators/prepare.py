@@ -2,11 +2,13 @@
 
 The reference hands whatever scipy matrix the user built straight to Eigen
 (``src/primate/include/eigen_operators.h:58-104``) — on CPU, CSR gather cost is
-roughly format-independent. On TPU the format IS the performance model:
+roughly format-independent. On an accelerator the format IS the performance
+model:
 
   * DIA stencils stream with zero gathers (speed-of-light for banded),
-  * BSR feeds the MXU when the pattern is genuinely block-structured,
-  * CSR/ELL pays a lane gather per nonzero — the slow path.
+  * BSR runs dense block products when the pattern is genuinely
+    block-structured,
+  * CSR/ELL pays a gather per nonzero — the slow path.
 
 Many matrices are banded *in the right ordering* (mesh/graph Laplacians under
 reverse-Cuthill-McKee), and the estimators this library exists for — trace,
@@ -205,12 +207,12 @@ def auto_operator(
 	bsr_fill_limit: float = 1.5,
 	blocksize: Tuple[int, int] = (8, 8),
 ) -> Tuple[LinearOperator, PrepInfo]:
-	"""Pick the fastest TPU storage format for a matrix, reordering if it helps.
+	"""Pick the fastest storage format for a matrix, reordering if it helps.
 
 	Decision ladder (each step falls through when its fill bound fails):
 
-	1. **dense** — density ≥ ``dense_density`` or ``n ≤ dense_n``: GEMMs on the
-	   MXU beat any sparse path at these sizes.
+	1. **dense** — density ≥ ``dense_density`` or ``n ≤ dense_n``: dense GEMMs
+	   beat any sparse path at these sizes.
 	2. **dia** — if the diagonal-band fill (``n_bands·n / nnz``) in the natural
 	   ordering, or after RCM when ``reorder != "never"``, is ≤
 	   ``dia_fill_limit``: gather-free stencil applies.

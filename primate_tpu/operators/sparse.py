@@ -3,14 +3,11 @@
 Parity: reference ``src/primate/include/eigen_operators.h:58-104``
 (`SparseEigenLinearOperator`, CSC + optional Gram mode).
 
-TPU-first: sparse structure is stored as flat device arrays registered as
-pytrees. The jnp compute path expresses SpMM as gather + multiply +
-`segment_sum`, which XLA fuses well; the BSR layout additionally exposes a
-Pallas kernel (``primate_tpu.ops.spmm_pallas``) that pipelines the nonzero
-blocks through VMEM and contracts each (bm × bn) block against the probe block
-on the MXU — the "speed-of-light nnz/s" path for Lanczos sweeps on graph
-Laplacians. Row-partitioning these arrays across a device mesh gives the
-distributed SpMM (see ``primate_tpu.parallel``).
+Sparse structure is stored as flat device arrays registered as pytrees, and
+every apply is plain XLA: gather + multiply + `segment_sum` (or its
+scatter-free ELL / block-ELL / stencil forms), which XLA fuses into the
+surrounding Lanczos step. Row-partitioning these arrays across a device mesh
+gives the distributed SpMM (see ``primate_tpu.parallel``).
 
 Indices are padded to fixed lengths (static shapes) — padding rows point at
 row 0 / column 0 with zero data, contributing nothing.
@@ -31,21 +28,17 @@ _ELL_SCAN_CHUNK = 8
 
 
 def _pad_lanes(V: jnp.ndarray):
-	"""Pad a (rows, k) probe block to 128 lanes when 16 < k < 64.
+	"""Pad a (rows, k) probe block to 128 columns when 16 < k < 64.
 
-	Row-gathers from narrow f32 blocks run far below the gather rate on v5e
-	(measured 64 ms vs 29 ms for the same 500k-row sliced-ELL apply at k = 32
-	vs 128 — the padded-lane physical traffic is paid either way, but the
-	narrow-lane lowering is additionally pathological). k ≥ 64 already runs at
-	the gather-issue rate (~6.3 ns per gathered row, chain-measured), and very
-	narrow blocks (k ≤ 16, e.g. single matvecs) are faster unpadded. Returns
-	the padded block and the original k (or the block unchanged and None).
+	Kept from the first accelerator this library targeted, where narrow
+	row-gathers lowered badly; whether it helps on the GPU is unmeasured.
+	Returns the padded block and the original k (or the block unchanged and
+	None).
 	"""
 	k = V.shape[-1]
 	if 16 < k < 64:
-		# The barrier MATERIALIZES the padded block: without it XLA fuses the
-		# pad into every slot gather, which drops the gathers back to the slow
-		# narrow-lane lowering (56 ms vs 30 ms for the same padded apply).
+		# The barrier materializes the padded block: without it XLA fuses the
+		# pad into every slot gather, which undoes the padding.
 		return jax.lax.optimization_barrier(jnp.pad(V, ((0, 0), (0, 128 - k)))), k
 	return V, None
 
@@ -54,13 +47,10 @@ def ell_apply(ell_data: jnp.ndarray, ell_idx: jnp.ndarray, V: jnp.ndarray) -> jn
 	"""ELL-plane SpMM ``out[i, :] = Σ_l ell_data[i, l] · V[ell_idx[i, l], :]``.
 
 	Lowered SLOT-BY-SLOT: one (rows, b) row-gather + fused multiply-add per
-	slot, instead of materializing the (rows, L, b) gathered tensor. On a v5e
-	the batched-gather form spends ~60% of its wall in an XLA relayout of that
-	intermediate (profiled: 2.6 ms reshape + 0.7 ms gather-fusion per apply at
-	rows=4096, L=105, b=96); the slot loop runs the same apply in 0.86 ms —
-	5× — because each slot's product fuses into the accumulation with no big
-	intermediate. Beyond ``_ELL_UNROLL_MAX`` slots the loop runs as a
-	``lax.scan`` over slot chunks (constant program size, ~35% slower).
+	slot, instead of materializing the (rows, L, b) gathered tensor, so each
+	slot's product fuses into the accumulation with no big intermediate.
+	Beyond ``_ELL_UNROLL_MAX`` slots the loop runs as a ``lax.scan`` over slot
+	chunks (constant program size).
 
 	Works on any leading index shape: ``ell_idx`` rows index rows of ``V``.
 	"""
@@ -161,9 +151,8 @@ class CSROperator(LinearOperator):
 	When the row-length distribution is tight enough (padding to the max row
 	length costs < ``ELL_MAX_FILL``× the nnz), construction additionally lays the
 	nonzeros out ELL-style as dense ``(n, L)`` index/value planes. SpMM then
-	becomes gather + a dense sum over the L slots — no scatter at all, which on
-	TPU is ~3× the sorted-`segment_sum` throughput (scatter-adds serialize
-	through HBM).
+	becomes gather + a dense sum over the L slots — no scatter at all
+	(scatter-adds serialize through device memory).
 
 	Power-law row distributions (hub rows orders of magnitude above the
 	median) defeat full-ELL padding, so construction then builds the SLICED
@@ -262,8 +251,7 @@ class CSROperator(LinearOperator):
 	def _build_sliced(cls, data: np.ndarray, indices: np.ndarray, indptr: np.ndarray, n: int):
 		"""Sliced-ELL layout for row-length distributions full-ELL padding can't
 		afford (power-law graphs: hub rows ~1000× the median defeat dense
-		(n, L) planes, and the sorted-`segment_sum` fallback is scatter-bound —
-		measured 161 ms per 64-probe apply at 4.5M nnz on a v5e, ~28 Mnnz/s).
+		(n, L) planes, and the sorted-`segment_sum` fallback is scatter-bound).
 
 		Rows are sorted by DESCENDING length (a row permutation only — column
 		ids are untouched, so no matching permutation of the operand is needed);
@@ -450,11 +438,10 @@ class CSROperator(LinearOperator):
 class BSROperator(LinearOperator):
 	"""Block-sparse-row operator: nonzeros stored as dense (bm × bn) tiles.
 
-	The natural TPU sparse format — each stored block contracts against the
-	probe block as a small MXU matmul. ``matmat`` uses the Pallas SpMM kernel on
-	TPU (grid over nonzero blocks with scalar-prefetched indices, output tiles
-	revisited in row order) and falls back to gather+einsum+segment_sum
-	elsewhere.
+	Each stored block contracts against the probe block as a small batched
+	matmul. ``matmat`` is scatter-free block-ELL (gather + per-slot block
+	einsum) when the block rows are even enough, gather + einsum +
+	``segment_sum`` otherwise.
 	"""
 
 	BELL_MAX_BYTES = 256 * 1024 * 1024  # auto block-ELL build cap (duplicated tile storage)
@@ -467,7 +454,6 @@ class BSROperator(LinearOperator):
 		indptr: jnp.ndarray,  # (n_brow + 1,)
 		shape: Tuple[int, int],
 		rowids: Optional[jnp.ndarray] = None,
-		use_pallas: Optional[bool] = None,
 		bell: Optional[bool] = None,
 	):
 		self.blocks = jnp.asarray(blocks)
@@ -480,7 +466,6 @@ class BSROperator(LinearOperator):
 			counts = np.diff(np.asarray(self.indptr))
 			rowids = np.repeat(np.arange(len(counts)), counts)
 		self.rowids = jnp.asarray(rowids, jnp.int32)
-		self.use_pallas = use_pallas
 		# Block-ELL planes (the tile-granularity analog of the CSR ELL path):
 		# when padding block rows to the max block count Lb stays under
 		# ELL_MAX_FILL× the stored tiles, SpMM drops the segment_sum scatter for
@@ -513,8 +498,7 @@ class BSROperator(LinearOperator):
 	def pshape(self) -> Tuple[int, int]:
 		"""Padded shape: the block grid rounded up to whole (bm × bn) tiles.
 
-		TPU-friendly blocksizes ((8, 128) lanes) rarely divide the logical n;
-		padding rows/cols are zero so matvecs are unaffected — ``matmat`` pads
+		Blocksizes rarely divide the logical n; padding rows/cols are zero so matvecs are unaffected — ``matmat`` pads
 		the probe block in and slices the product back out.
 		"""
 		bm, bn = self.blocks.shape[1:]
@@ -550,8 +534,8 @@ class BSROperator(LinearOperator):
 				raise RuntimeError("native sparse-prep library unavailable (no C++ toolchain?)")
 		nnz_logical = int(A.nnz)  # BEFORE tobsr: BSR .nnz counts stored block entries
 		if blocksize is not None:
-			# Zero-pad the matrix to whole tiles so TPU-native blocksizes
-			# ((8,128), ...) work for any n; the logical shape is kept.
+			# Zero-pad the matrix to whole tiles so any blocksize works for
+			# any n; the logical shape is kept.
 			bm, bn = blocksize
 			padded = (-(-shape[0] // bm) * bm, -(-shape[1] // bn) * bn)
 			if padded != shape:
@@ -592,10 +576,9 @@ class BSROperator(LinearOperator):
 			V = jnp.pad(V, ((0, np_c - V.shape[0]), (0, 0)))
 		Vb = V.reshape(-1, bn, k)  # (n_bcol, bn, k)
 		acc = jnp.promote_types(self.dtype, jnp.float32)
-		# precision=HIGHEST: TPU's default matmul precision truncates f32 inputs
-		# to bf16 (measured 4.7e-2 abs error on a unit-scale Laplacian SpMM vs
-		# 1.9e-6 at full precision); these tiny block contractions are
-		# gather-bound, so exact f32 passes cost nothing.
+		# precision=HIGHEST: an f32 contraction at the default precision may
+		# run in a reduced-precision format (TF32 on the GPU); these tiny block
+		# contractions are gather-bound, so exact f32 passes cost little.
 		if self.bell_blocks is not None:
 			n_brow, Lb = self.bell_idx.shape
 			if Lb <= _ELL_UNROLL_MAX:
@@ -612,11 +595,9 @@ class BSROperator(LinearOperator):
 				return Y.reshape(np_r, k)[: self.shape[0]].astype(self.dtype)
 			if n_brow * Lb * bm * k * 4 <= self.BELL_FLAT_MAX_BYTES:
 				# FLAT block-ELL for many-block rows: one gather over all padded
-				# slots + reshape-sum over the slot axis — scatter-free, and 1.8×
-				# the segment_sum path on a v5e (16.0 vs 28.4 ms at n_brow=2048,
-				# Lb=203, k=64; 330k stored 8×8 tiles). Slot-by-slot gathers are
-				# the wrong shape here: Lb tiny (n_brow,)-sized gathers pay
-				# per-op overhead the single flat gather amortizes.
+				# slots + reshape-sum over the slot axis — scatter-free. Slot-by-
+				# slot gathers are the wrong shape here: Lb tiny (n_brow,)-sized
+				# gathers pay per-op overhead the single flat gather amortizes.
 				idx = self.bell_idx.reshape(-1)
 				blocks = self.bell_blocks.reshape(-1, bm, bn)
 				prod = jnp.einsum(
@@ -656,20 +637,6 @@ class BSROperator(LinearOperator):
 		return self.rmatmat(v)
 
 	def _matmat(self, V: jnp.ndarray) -> jnp.ndarray:
-		# Default to the XLA gather+blockeinsum+segment_sum path: measured
-		# FASTER than the scalar-prefetched Pallas kernel at every blocksize
-		# tried on v5 (0.51 vs 2.30 ms at (8,8); 0.64 vs 1.31 ms at (16,128);
-		# 1.20 vs 2.52 ms at (8,128) — 4k rows, 64 probes). The kernel's
-		# one-small-MXU-matmul-per-grid-step schedule pays per-step overhead
-		# that XLA's fused gather avoids; it stays available (use_pallas=True)
-		# as the explicitly-scheduled alternative.
-		if self.use_pallas:
-			try:
-				from ..ops.spmm_pallas import bsr_matmat
-
-				return bsr_matmat(self, V)
-			except (ImportError, NotImplementedError):
-				pass
 		return self._matmat_jnp(V)
 
 	def todense(self) -> jnp.ndarray:
@@ -683,13 +650,13 @@ class BSROperator(LinearOperator):
 		children = (self.blocks, self.indices, self.indptr, self.rowids)
 		if self.bell_blocks is not None:
 			children += (self.bell_blocks, self.bell_idx)
-		return children, (self.shape, self.dtype, self.use_pallas, self.bell_blocks is not None)
+		return children, (self.shape, self.dtype, self.bell_blocks is not None)
 
 	@classmethod
 	def tree_unflatten(cls, aux, children):
 		obj = object.__new__(cls)
 		obj.blocks, obj.indices, obj.indptr, obj.rowids = children[:4]
-		obj.shape, obj.dtype, obj.use_pallas, has_bell = aux
+		obj.shape, obj.dtype, has_bell = aux
 		obj.bell_blocks, obj.bell_idx = (children[4], children[5]) if has_bell else (None, None)
 		return obj
 
@@ -701,21 +668,19 @@ class DIAOperator(LinearOperator):
 	Graph/mesh Laplacians (the reference's flagship sparse workloads) are
 	banded after natural or RCM ordering; storing them as dense BSR tiles
 	inflates memory ~bm·bn/band-fold. DIA stores one length-n vector per
-	nonzero diagonal and the matvec is a pure VPU shift-multiply-add with
-	**zero gathers** — arithmetic intensity is bounded only by HBM streaming
-	of V, which is the actual speed-of-light for SpMV on TPU.
+	nonzero diagonal and the matvec is a pure elementwise shift-multiply-add
+	with **zero gathers**, bounded only by streaming V through device memory.
 
 	Convention (row-aligned): ``band[k][i] = A[i, i + offsets[k]]``, so
 	``out[i] += band[k][i] · v[i + offsets[k]]``. Offsets are static aux data,
 	making every slice static under jit.
 	"""
 
-	def __init__(self, bands: jnp.ndarray, offsets: Tuple[int, ...], shape: Tuple[int, int], use_pallas: Optional[bool] = None):
+	def __init__(self, bands: jnp.ndarray, offsets: Tuple[int, ...], shape: Tuple[int, int]):
 		self.bands = jnp.asarray(bands)  # (n_diags, n)
 		self.offsets = tuple(int(o) for o in offsets)
 		self.shape = tuple(shape)
 		self.dtype = self.bands.dtype
-		self.use_pallas = use_pallas
 
 	@classmethod
 	def from_scipy(cls, A, dtype=None, engine: str = "auto") -> "DIAOperator":
@@ -765,24 +730,11 @@ class DIAOperator(LinearOperator):
 		return out.astype(self.dtype)
 
 	def _matmat(self, V: jnp.ndarray) -> jnp.ndarray:
-		# Default to the XLA path: the shift-multiply-add DAG fuses into a
-		# near-streaming-bound loop that measured FASTER than the manual-DMA
-		# Pallas stencil on v5 hardware (no DMA serialization). The kernel
-		# stays available (use_pallas=True, lane-aligned probe counts) as the
-		# explicitly-scheduled alternative.
-		if self.use_pallas:
-			from ..ops.dia_pallas import dia_matmat
-
-			try:
-				return dia_matmat(self, V)
-			except NotImplementedError:
-				pass  # lane-partial probe blocks / wide bands: XLA path below
 		return self._matmat_jnp(V)
 
 	def matvec(self, v: jnp.ndarray) -> jnp.ndarray:
-		# True 1-D stencil: the default (n, 1)-block route pads the single
-		# probe column to 128 lanes (128× traffic); a 1-D array packs lanes
-		# densely, which matters inside serial single-probe loops (`diag`).
+		# True 1-D stencil: no (n, 1) probe block, which matters inside serial
+		# single-probe loops (`diag`).
 		v = jnp.asarray(v)
 		if v.ndim != 1:
 			return self._matmat(v)
@@ -797,26 +749,10 @@ class DIAOperator(LinearOperator):
 
 	def matmat_t(self, Vt: jnp.ndarray) -> jnp.ndarray:
 		# Probe-major stencil: out[b, i] = Σ_k band_k[i] · Vt[b, i + off_k].
-		# Shifts run along the contiguous lane axis; bands broadcast over the
-		# probe axis — still zero gathers, and no lane padding for any k.
-		moff_k = max((abs(o) for o in self.offsets), default=0)
-		if self.use_pallas and moff_k <= 128:
-			# Manual double-buffered stencil kernel. Measured: the kernel body
-			# streams ~2.2× faster than XLA's shift-multiply-add schedule, but
-			# the per-call halo pad + unpad copies (unavoidable inside a scan
-			# carry) bring it back to parity (47.9 vs 47.0 ms per 20-step
-			# chain, 64×500k f32 on v5e) — kept opt-in as the explicitly
-			# scheduled alternative. Bands wider than the kernel's 128-lane
-			# halo fall through to the XLA stencil below.
-			from ..ops.dia_pallas import dia_matmat_t
-
-			try:
-				return dia_matmat_t(self, Vt)
-			except NotImplementedError:
-				pass  # complex dtypes / other kernel limits: XLA stencil below
-		# use_pallas with a band wider than the kernel halo falls through to
-		# the XLA stencil below (probe-count-agnostic, unlike the node-major
-		# kernel's 128-lane requirement).
+		# Shifts run along the contiguous row axis; bands broadcast over the
+		# probe axis — zero gathers. XLA emits the padded shift-multiply-add
+		# as one loop fusion, which joins the Lanczos step's axpy and
+		# reductions.
 		n = self.shape[0]
 		moff = max((abs(o) for o in self.offsets), default=0)
 		Vp = jnp.pad(Vt, ((0, 0), (moff, moff))) if moff else Vt
@@ -825,56 +761,6 @@ class DIAOperator(LinearOperator):
 		for k, off in enumerate(self.offsets):
 			out = out + self.bands[k, None, :].astype(acc) * Vp[:, moff + off : moff + off + n]
 		return out.astype(self.dtype)
-
-	# -- physical (halo-padded) probe-major layout --------------------------
-	# Krylov sweeps apply the stencil to the SAME block shape deg times; the
-	# Pallas kernel's per-call halo pad/unpad used to erase its measured win
-	# (round-2). `phys_spec`/`matmat_t_phys` let the Lanczos carry hold the
-	# kernel's native layout — (nv, HALO + round_up(n, TILE) + HALO) with zeros
-	# outside the logical lanes — so consecutive applications chain with no
-	# repack. Measured on v5e (64×500k f32, 100-step dependent chain): the
-	# kernel beats the isolated XLA stencil 1.47×/1.83×/2.36× at 3/5/9
-	# diagonals (it streams V once; XLA's shift DAG pays per-diagonal copies).
-	# Inside the full Lanczos sweep, however, XLA fuses its stencil with the
-	# β-axpy and α-reduction of the recurrence — a fusion a pallas_call cannot
-	# join — and the two paths land within ±2% end-to-end, so the sweep
-	# engages this path only on an explicit `use_pallas=True` opt-in
-	# (see benchmarks/RESULTS.md round-3 notes).
-
-	def phys_spec(self, nv: int, interpret: bool = False) -> Optional[Tuple[int, int]]:
-		"""``(n_phys, lo)`` when the padded-layout stencil path applies, else None.
-
-		Eligible: real dtype, |offset| ≤ the kernel's 128-lane halo, probe
-		count sublane-aligned, TPU backend (or ``interpret=True`` for tests),
-		and ``use_pallas`` not explicitly False.
-		"""
-		from ..ops.dia_pallas import HALO, LANE_TILE
-
-		moff = max((abs(o) for o in self.offsets), default=0)
-		eligible = (
-			self.use_pallas is not False
-			and (jax.default_backend() == "tpu" or interpret)
-			and moff <= HALO
-			and nv % 8 == 0
-			and jnp.dtype(self.dtype).kind != "c"
-		)
-		if not eligible:
-			return None
-		n_dom = -(-self.shape[0] // LANE_TILE) * LANE_TILE
-		return (n_dom + 2 * HALO, HALO)
-
-	def matmat_t_phys(self, Xphys: jnp.ndarray, interpret: bool = False) -> jnp.ndarray:
-		"""Stencil apply in the physical layout (see `phys_spec`) — same padded
-		shape in and out, zero margins preserved."""
-		from ..ops.dia_pallas import HALO, LANE_TILE, dia_matmat_t_phys
-
-		n = self.shape[0]
-		n_dom = -(-n // LANE_TILE) * LANE_TILE
-		bands = self.bands
-		if n_dom != n:
-			# Loop-invariant under scan: XLA hoists this pad out of the sweep.
-			bands = jnp.pad(bands, ((0, 0), (0, n_dom - n)))
-		return dia_matmat_t_phys(bands, Xphys, self.offsets, interpret=interpret)
 
 	def rmatvec(self, v: jnp.ndarray) -> jnp.ndarray:
 		# ADJOINT A†v: A† has band'_{-d}[i] = conj(band_d[i - d]) (conj a no-op
@@ -901,13 +787,13 @@ class DIAOperator(LinearOperator):
 		return out
 
 	def tree_flatten(self):
-		return (self.bands,), (self.offsets, self.shape, self.dtype, self.use_pallas)
+		return (self.bands,), (self.offsets, self.shape, self.dtype)
 
 	@classmethod
 	def tree_unflatten(cls, aux, children):
 		obj = object.__new__(cls)
 		obj.bands = children[0]
-		obj.offsets, obj.shape, obj.dtype, obj.use_pallas = aux
+		obj.offsets, obj.shape, obj.dtype = aux
 		return obj
 
 
@@ -953,9 +839,8 @@ class GramOperator(LinearOperator):
 def _pad_empty_block_rows(data: np.ndarray, indices: np.ndarray, indptr: np.ndarray):
 	"""Insert one explicit zero block into each empty block-row (host-side).
 
-	The Pallas SpMM kernel writes each output tile only when its block-row is
-	visited; an empty block-row would leave that tile uninitialized. One zero
-	block per empty row guarantees full coverage at negligible cost.
+	Every block-row then owns at least one stored block, so block-ELL planes
+	and the sharded partitioner see full row coverage at negligible cost.
 	"""
 	counts = np.diff(indptr)
 	empty = np.flatnonzero(counts == 0)

@@ -3,7 +3,7 @@
 Parity: reference ``src/primate/operators.py:36-193`` (`MatrixFunction`,
 `matrix_function`, `Toeplitz`, `normalize_unit`).
 
-TPU-first: `MatrixFunction.matvec`/`quad` are fully batched — one fused block
+Accelerator-first: `MatrixFunction.matvec`/`quad` are fully batched — one fused block
 Lanczos sweep (a `lax.scan` of GEMMs) plus one batched tridiagonal eigensolve
 covers **all** probe columns, replacing the reference's serial per-column loop
 (`operators.py:145-150`). Both methods are jittable and differentiable, and
@@ -190,8 +190,8 @@ class MatrixFunction(LinearOperator):
 		e = out.betas[: self._deg - 1].T  # (b, deg-1)
 		rw, Y = eigh_tridiag(a, e)  # (b, deg), (b, deg, deg)
 		w = self.fun(rw) * Y[:, 0, :]  # f(θ) ∘ Y[0,:], broadcast over stack axes
-		# precision: deg-length contraction of the spectral coefficients — TPU's
-		# default bf16 matmul precision costs ~3 digits of f(A)v accuracy.
+		# precision: deg-length contraction of the spectral coefficients — a
+		# reduced-precision default (TF32 on the GPU) costs digits of f(A)v.
 		return jnp.einsum("bij,...bj->...bi", Y, w, precision=jax.lax.Precision.HIGHEST)
 
 	def _matmat(self, X: jnp.ndarray) -> jnp.ndarray:

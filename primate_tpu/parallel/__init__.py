@@ -1,16 +1,16 @@
 """Distributed execution: device meshes, sharded operators, collectives.
 
 The reference has **no distributed capability** (SURVEY §5.8: no NCCL/MPI/
-Gloo; OpenMP dropped in v0.5). This package supplies the TPU-native
+Gloo; OpenMP dropped in v0.5). This package supplies the device-native
 parallelism axes instead:
 
   * **operator sharding** (tensor-parallel analog): row/block-partitioned
-    operators across a mesh axis, each matvec a local SpMM plus ICI
+    operators across a mesh axis, each matvec a local SpMM plus
     collectives (`all_gather` or neighbor `ppermute` halo exchange);
   * **probe sharding** (data-parallel analog): probe columns split across a
     second mesh axis, estimator reductions as `psum`s;
-  * **multi-host** entry via `jax.distributed.initialize` (collectives ride
-    ICI within a slice and DCN across hosts — the same program runs on both).
+  * **multi-process** entry via `jax.distributed.initialize` (the same
+    program runs on one process driving several devices or on many).
 """
 
 from .mesh import make_mesh, mesh_devices, initialize_distributed

@@ -1,15 +1,17 @@
 """Device-mesh construction and multi-host initialization.
 
-TPU-first configuration that cannot be inferred from kwargs (SURVEY §5.6):
-the mesh shape and axis names are explicit. Conventions used throughout:
+Configuration that cannot be inferred from kwargs (SURVEY §5.6): the mesh
+shape and axis names are explicit. Conventions used throughout:
 
   * axis ``"op"`` — the operator's row axis is block-partitioned here
-    (tensor-parallel analog; collectives ride ICI);
+    (tensor-parallel analog; collectives ride the device interconnect);
   * axis ``"probe"`` — independent probe vectors are split here
     (data-parallel analog; estimator reductions are ``psum``s over it).
 
 A 1-D mesh over all devices on the "op" axis is the default: the matvec is
-the only O(n²)/O(nnz) cost, so operator sharding is the first lever.
+the only O(n²)/O(nnz) cost, so operator sharding is the first lever. The
+mesh follows the algorithm alone: on an all-to-all interconnect (NVLink) no
+device order is better than another.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -54,9 +56,10 @@ def make_mesh(
 def initialize_distributed(**kwargs) -> None:
 	"""Multi-host entry point: join the JAX distributed runtime.
 
-	Thin wrapper over ``jax.distributed.initialize`` (coordinator address,
-	process id/count from TPU pod metadata or kwargs). After this, every host
-	sees the global device list and ``make_mesh`` spans the whole pod slice —
-	the estimator programs are unchanged (collectives cross DCN transparently).
+	Thin wrapper over ``jax.distributed.initialize``: pass
+	``coordinator_address`` (``host:port``), ``num_processes`` and
+	``process_id`` explicitly — nothing infers them on a plain GPU host.
+	After this, every process sees the global device list and ``make_mesh``
+	spans all of them; the estimator programs are unchanged.
 	"""
 	jax.distributed.initialize(**kwargs)

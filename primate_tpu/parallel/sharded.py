@@ -2,7 +2,7 @@
 
 The distributed analog of the reference's single-address-space Eigen matvec
 (``src/primate/include/eigen_operators.h:17-137``) — here each matvec is a
-local SpMM on every chip plus an ICI collective for the vector segments
+local SpMM on every device plus a collective for the vector segments
 (SURVEY §5.7-5.8, BASELINE.json north star).
 
 Two communication schemes for sparse operators:
@@ -49,7 +49,7 @@ class ShardedDenseOperator(LinearOperator):
 
 	The matvec is a plain ``A @ V`` — with ``A`` sharded ``P(op, None)`` and
 	``V`` replicated, XLA partitions the GEMM so each chip computes its row
-	block on its local MXU and the row-sharded product flows downstream
+	block locally and the row-sharded product flows downstream
 	without any host involvement.
 	"""
 
@@ -139,9 +139,9 @@ def _partition_bsr_host(
 				bwb = max(bwb, int(np.abs(cnz - (rb[nz] + lo)).max()))
 			# Structurally-zero stored blocks may carry arbitrary (out-of-band)
 			# colids; the halo window remap in `from_bsr` could push those
-			# outside [0, bpd + 2·halo), which the Pallas kernel's BlockSpec
-			# index_map would DMA unguarded. Point them at the in-window pad
-			# column instead — the block value is zero, so the product is too.
+			# outside [0, bpd + 2·halo), where the gather would clamp. Point
+			# them at the in-window pad column instead — the block value is
+			# zero, so the product is too.
 			pad_col = min(lo, n_brow_pad - 1)
 			cb = np.where(nz, cb, pad_col).astype(cb.dtype)
 		# Cover every local row (incl. rows past n_brow on the last device).
@@ -190,20 +190,13 @@ def _probe_axis_or_none(mesh, pr_ax, k: int):
 	return pr_ax if npr > 1 and k % npr == 0 else None
 
 
-def _local_bsr_mm(blocks, rowids, colids, V, *, n_brow_loc: int, use_pallas: bool):
-	"""Per-chip SpMM of the local row block against a gatherable V segment."""
+def _local_bsr_mm(blocks, rowids, colids, V, *, n_brow_loc: int):
+	"""Per-device SpMM of the local row block against a gatherable V segment."""
 	bm, bn = blocks.shape[1:]
 	k = V.shape[1]
 	acc = jnp.promote_types(blocks.dtype, jnp.float32)
-	if use_pallas:
-		from ..ops.spmm_pallas import bsr_matmat_pallas
-
-		k_pad = max(-(-k // 128) * 128, 128)
-		Vp = jnp.pad(V, ((0, 0), (0, k_pad - k))) if k_pad != k else V
-		out = bsr_matmat_pallas(blocks, rowids, colids, Vp, n_out=n_brow_loc * bm)
-		return out[:, :k].astype(blocks.dtype)
 	Vb = V.reshape(-1, bn, k)
-	# precision=HIGHEST: TPU default matmul precision is bf16 (see
+	# precision=HIGHEST: the default f32 precision may be TF32 on the GPU (see
 	# operators/sparse.py) — gather-bound block contractions stay exact f32.
 	prod = jnp.einsum("zij,zjk->zik", blocks, Vb[colids], preferred_element_type=acc, precision=jax.lax.Precision.HIGHEST)
 	Y = jax.ops.segment_sum(prod, rowids, num_segments=n_brow_loc)
@@ -215,8 +208,8 @@ class ShardedBSROperator(LinearOperator):
 	"""Block-sparse operator row-partitioned across the ``op`` mesh axis.
 
 	Storage: per-device block lists stacked along a leading device axis and
-	laid out with ``P(op)``, so each chip holds exactly its contiguous band of
-	block-rows. ``matmat`` is a `shard_map`: local (Pallas) SpMM + the
+	laid out with ``P(op)``, so each device holds exactly its contiguous band of
+	block-rows. ``matmat`` is a `shard_map`: local SpMM + the
 	communication scheme chosen at partition time (see module docstring).
 	"""
 
@@ -231,7 +224,6 @@ class ShardedBSROperator(LinearOperator):
 		probe_axis: Optional[str] = None,
 		comm: str = "allgather",
 		bpd: int = 0,
-		use_pallas: Optional[bool] = None,
 		halo: int = 0,
 	):
 		self.blocks, self.rowids, self.colids = blocks, rowids, colids
@@ -242,7 +234,6 @@ class ShardedBSROperator(LinearOperator):
 		self.probe_axis = probe_axis
 		self.comm = comm
 		self.bpd = int(bpd)
-		self.use_pallas = use_pallas
 		self.halo = int(halo)  # BLOCK-rows exchanged per ring neighbor (halo mode)
 
 	# -- construction -----------------------------------------------------
@@ -256,7 +247,6 @@ class ShardedBSROperator(LinearOperator):
 		comm: str = "auto",
 		blocksize: Optional[Tuple[int, int]] = None,
 		dtype=None,
-		use_pallas: Optional[bool] = None,
 	) -> "ShardedBSROperator":
 		"""Partition a BSR operator / scipy sparse matrix across ``mesh[op_axis]``."""
 		if not isinstance(A, BSROperator):
@@ -284,8 +274,8 @@ class ShardedBSROperator(LinearOperator):
 			halo = int(min(max(bwb, 1), bpd))
 			shift = (np.arange(ndev)[:, None]) * bpd - halo
 			st_colids = (st_colids - shift).astype(np.int32)
-			# Backstop for the Pallas unguarded-DMA hazard: every remapped colid
-			# must land inside the [0, bpd + 2·halo) gather window (structural
+			# Backstop: every remapped colid must land inside the
+			# [0, bpd + 2·halo) gather window (structural
 			# blocks by the halo_ok/bandwidth proof, zero blocks by the pad-col
 			# rewrite in `_partition_bsr_host`).
 			if st_colids.size and (st_colids.min() < 0 or st_colids.max() >= bpd + 2 * halo):
@@ -316,7 +306,6 @@ class ShardedBSROperator(LinearOperator):
 			probe_axis,
 			comm=mode,
 			bpd=bpd,
-			use_pallas=use_pallas,
 			halo=halo,
 		)
 
@@ -333,14 +322,9 @@ class ShardedBSROperator(LinearOperator):
 		n, k = self.shape[0], V.shape[1]
 		bm, bn = self.blocksize
 		np_c = -(-self.shape[1] // bn) * bn  # column grid padded to whole tiles
-		from ..ops.spmm_pallas import MAX_PREFETCH_BLOCKS
-
-		use_pallas = self.use_pallas
-		if use_pallas is None:
-			use_pallas = jax.default_backend() == "tpu" and self.blocks.shape[1] <= MAX_PREFETCH_BLOCKS
 		op_ax, pr_ax = self.op_axis, self.probe_axis
 		pr = _probe_axis_or_none(self.mesh, pr_ax, V.shape[1])
-		local = partial(_local_bsr_mm, n_brow_loc=self.bpd, use_pallas=use_pallas)
+		local = partial(_local_bsr_mm, n_brow_loc=self.bpd)
 
 		if self.comm == "halo":
 			n_pad = self._n_row_pad
@@ -458,14 +442,14 @@ class ShardedBSROperator(LinearOperator):
 
 	def tree_flatten(self):
 		children = (self.blocks, self.rowids, self.colids)
-		aux = (self.shape, self.dtype, self.mesh, self.op_axis, self.probe_axis, self.comm, self.bpd, self.use_pallas, self.halo)
+		aux = (self.shape, self.dtype, self.mesh, self.op_axis, self.probe_axis, self.comm, self.bpd, self.halo)
 		return children, aux
 
 	@classmethod
 	def tree_unflatten(cls, aux, children):
 		obj = object.__new__(cls)
 		obj.blocks, obj.rowids, obj.colids = children
-		obj.shape, obj.dtype, obj.mesh, obj.op_axis, obj.probe_axis, obj.comm, obj.bpd, obj.use_pallas, obj.halo = aux
+		obj.shape, obj.dtype, obj.mesh, obj.op_axis, obj.probe_axis, obj.comm, obj.bpd, obj.halo = aux
 		return obj
 
 
@@ -473,9 +457,9 @@ class ShardedBSROperator(LinearOperator):
 class ShardedDIAOperator(LinearOperator):
 	"""Banded (DIA) operator row-partitioned with minimal halo exchange.
 
-	The cleanest distributed SpMV on TPU: bands are row-sharded, probes are
+	The cleanest distributed SpMV: bands are row-sharded, probes are
 	row-sharded, and each matvec exchanges only ``moff = max|offset|`` boundary
-	rows with each ring neighbor via `ppermute` — traffic O(moff·k) per chip
+	rows with each ring neighbor via `ppermute` — traffic O(moff·k) per device
 	regardless of n, overlapped with the local stencil by XLA's scheduler.
 	Requires ``moff ≤ rows-per-chip`` (±1-neighbor halo).
 	"""
@@ -559,7 +543,7 @@ class ShardedDIAOperator(LinearOperator):
 	def matmat_t(self, Vt: jnp.ndarray) -> jnp.ndarray:
 		# Probe-major sharded stencil: Vt (k, n) with the row axis sharded on
 		# axis 1. Same minimal halo (O(moff·k) per ring neighbor), shifts along
-		# the contiguous lane axis — the layout the Lanczos sweep carries, so
+		# the contiguous row axis — the layout the Lanczos sweep carries, so
 		# no per-step transposes on the distributed path either.
 		n = self.shape[0]
 		ndev = self.mesh.shape[self.op_axis]
@@ -700,7 +684,7 @@ class ShardedCSROperator(LinearOperator):
 	up-to-64× inflation a forced (8, 8) BSR re-block pays (round-2 verdict
 	weak-point 4). Each chip stores its contiguous row band in the same layout
 	the single-chip :class:`~primate_tpu.operators.sparse.CSROperator` picks:
-	ELL planes (gather + dense slot-sum, no scatter — the 3× faster path) when
+	ELL planes (gather + dense slot-sum, no scatter) when
 	padding to the longest local row is cheap, sorted `segment_sum` otherwise.
 
 	Communication follows the module convention: ``comm="allgather"`` keeps
@@ -745,16 +729,8 @@ class ShardedCSROperator(LinearOperator):
 		probe_axis: Optional[str] = None,
 		comm: str = "auto",
 		dtype=None,
-		use_pallas: Optional[bool] = None,
 	) -> "ShardedCSROperator":
-		"""Partition a CSR operator / scipy sparse matrix across ``mesh[op_axis]``.
-
-		``use_pallas`` is accepted for signature compatibility with the BSR/DIA
-		sharding paths (so ``shard_operator(..., use_pallas=...)`` keeps working
-		when the input routes here) and is ignored: the CSR local kernels
-		(ELL gather / sorted segment_sum) have no Pallas variant.
-		"""
-		del use_pallas
+		"""Partition a CSR operator / scipy sparse matrix across ``mesh[op_axis]``."""
 		if isinstance(A, CSROperator):
 			data, indices, indptr, shape = np.asarray(A.data), np.asarray(A.indices), np.asarray(A.indptr), A.shape
 		else:

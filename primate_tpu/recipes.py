@@ -66,7 +66,7 @@ def _memo_fun(kind: str, *params: float):
 
 	MatrixFunction carries ``fun`` as STATIC jit data, so a fresh closure per
 	call would recompile the whole fused estimator every invocation (seconds
-	of XLA compile on TPU for identical parameters). Memoizing on the
+	of XLA compile for identical parameters). Memoizing on the
 	(kind, params) tuple gives repeated calls the same callable identity —
 	the same fix `_shift_family` applies to shifted_trace.
 	"""

@@ -3,9 +3,9 @@
 Beyond-reference capability (the reference ships no solver): completes the
 Gaussian-process workflow — ``logdet(K)`` comes from SLQ
 (:func:`~primate_tpu.recipes.logdet`), the quadratic term ``yᵀK⁻¹y`` from CG
-on the same operator protocol. TPU-first shape: the iteration is a
+on the same operator protocol. Accelerator shape: the iteration is a
 `lax.while_loop` whose body is one operator application on the whole
-right-hand-side block (SpMM/GEMM on the MXU) plus a few batched reductions —
+right-hand-side block (SpMM/GEMM) plus a few batched reductions —
 all RHS columns converge together with per-column masking.
 """
 
@@ -51,7 +51,7 @@ class NystromPreconditioner:
 	preconditioner ``P⁻¹ = (λ_s+μ)·U(Λ+μ)⁻¹Uᵀ + (I − UUᵀ)`` clusters the top of
 	the spectrum at ``λ_s + μ``, so PCG converges at the rate of the *deflated*
 	condition number. Construction is one sketch SpMM + a Cholesky + an (n×s)
-	SVD; each application is two GEMMs — the TPU-native preconditioner for the
+	SVD; each application is two GEMMs — the device-native preconditioner for the
 	GP workflow (vs incomplete factorizations, which are serial and
 	sparsity-bound). Beyond-reference capability (no solver exists there).
 	"""
@@ -89,7 +89,7 @@ def nystrom_precond(A, rank: int = 64, mu: float = 0.0, seed=None) -> NystromPre
 	Y = Y + nu * Om
 	L = jnp.linalg.cholesky(0.5 * ((jnp.conj(Om).T @ Y) + (jnp.conj(Y).T @ Om)))  # ½(Ω†Y + Y†Ω)
 	# Small (s×s) triangular inverse + GEMM instead of a triangular solve with
-	# an (s, n) RHS — back-substitution at that shape serializes on TPU.
+	# an (s, n) RHS — back-substitution at that shape serializes.
 	L_inv = jax.scipy.linalg.solve_triangular(L, jnp.eye(s, dtype=acc), lower=True)
 	B = Y @ jnp.conj(L_inv).T  # (n, s) = Y L^{-H}
 	# Left singular vectors via eigh of the small (s×s) Gram matrix instead of
@@ -135,8 +135,8 @@ def _cg_loop(
 	matmat_t: Optional[Callable] = None,
 ) -> CGState:
 	# The loop carries its (X, R, P) state PROBE-MAJOR — (k, n), contiguous n
-	# on vector lanes — for the same reason the Lanczos sweep does: a (n, k<128)
-	# node-major block pads every tile to 128 lanes. GP-style solves with one
+	# — the layout the Lanczos sweep carries, so the probe count never sets
+	# the minor dimension. GP-style solves with one
 	# or a few right-hand sides are the common case. State transposes back to
 	# the (n, k) API layout at exit.
 	if matmat_t is None:
@@ -303,7 +303,7 @@ def _jacobi_weights(d, stochastic: bool, acc) -> jnp.ndarray:
 	  * EXACT diagonals (extracted from the operator, or user-supplied — the
 	    caller controls those) keep exact ``1/d`` down to an eps-relative
 	    positivity threshold, so a legitimate SPD diagonal spanning many
-	    orders of magnitude is not silently weakened (ADVICE r3);
+	    orders of magnitude is not silently weakened;
 	  * STOCHASTIC estimates (matrix-free fallback) can come out ≤ 0 or
 	    tiny-positive on non-diagonally-dominant operators; exact ``1/d`` of a
 	    noisy near-zero entry is a huge, wrong weight that breaks or stalls
@@ -322,10 +322,10 @@ def _jacobi_weights(d, stochastic: bool, acc) -> jnp.ndarray:
 def _warn_floored_if_free(floored, d_floor) -> None:
 	"""Warn that Jacobi flooring fired — but ONLY when counting costs nothing.
 
-	Under tracing there is no concrete value; on a remote-attached accelerator
-	an eager scalar pull costs a full host↔device round trip per cg call (the
-	exact latency class this library eliminates elsewhere), so the check runs
-	only for host-resident (numpy / local-CPU) values.
+	Under tracing there is no concrete value; on an accelerator an eager
+	scalar pull is a device→host sync per cg call (the latency class this
+	library eliminates elsewhere), so the check runs only for host-resident
+	(numpy / local-CPU) values.
 	"""
 	if isinstance(floored, jax.core.Tracer):
 		return

@@ -3,7 +3,7 @@
 Parity: reference ``src/primate/tridiag.py`` (dispatch) and the Pythran
 ``src/primate/tqli.py`` (implicit-shift QL fallback).
 
-TPU-first design: JAX has no eigenvector-producing `eigh_tridiagonal`, and the
+Accelerator design: JAX has no eigenvector-producing `eigh_tridiagonal`, and the
 Jacobi matrices produced by Lanczos are tiny (deg ≲ 100) but arrive **in
 batches of nv probes** — so the default path densifies each (deg × deg)
 tridiagonal and calls `jnp.linalg.eigh`, which batches over leading axes and

@@ -1,6 +1,6 @@
 """Differentiable spectral sums (autodiff.py): custom_vjp SLQ trace path.
 
-VERDICT r3 item 3: ``jax.grad`` must work through ``recipes.logdet`` /
+``jax.grad`` must work through ``recipes.logdet`` /
 ``hutch ∘ MatrixFunction``, with the cotangent computed via the stochastic
 identity tr(f'(A)·∂A) on shared probes (CG for log/inv) — and the GP
 log-likelihood gradient must match central finite differences to rtol 1e-2.
@@ -138,7 +138,7 @@ def test_sparse_operator_gradient_flows_to_data():
 
 
 def test_gp_nll_gradient_matches_fd():
-	"""VERDICT r3 'done' condition: jax.grad of the GP NLL matches central
+	"""jax.grad of the GP NLL matches central
 	finite differences of the EXACT NLL to rtol 1e-2 (probe count high enough
 	that estimator noise sits below that)."""
 	n = _X.shape[0]

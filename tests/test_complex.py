@@ -466,9 +466,8 @@ def test_lanczos_complex_alpha_beta_real_dtype():
 	assert np.allclose(np.sort(np.asarray(rw)), np.linspace(0.5, 2.0, n), atol=1e-4)
 
 
-def test_dia_use_pallas_complex_falls_back():
-	"""Review r3d: matmat_t with use_pallas=True on a complex DIA operator
-	falls back to the XLA stencil instead of raising from the kernel."""
+def test_dia_complex_probe_major_matches_dense():
+	"""matmat_t on a complex Hermitian DIA operator matches the dense product."""
 	from primate_tpu.operators.sparse import DIAOperator
 	import scipy.sparse as sps
 
@@ -476,7 +475,6 @@ def test_dia_use_pallas_complex_falls_back():
 	off = (0.2 + 0.3j) * np.ones(n - 1)
 	H = sps.diags([np.conj(off), 2.0 * np.ones(n).astype(complex), off], [-1, 0, 1]).todia()
 	op = DIAOperator.from_scipy(H)
-	op.use_pallas = True
 	Vt = jnp.asarray(np.random.default_rng(0).normal(size=(4, n)) + 0j, jnp.complex64)
 	got = np.asarray(op.matmat_t(Vt))
 	want = (H.toarray() @ np.asarray(Vt).T).T

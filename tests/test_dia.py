@@ -1,4 +1,4 @@
-"""DIA (banded/stencil) operator + fused Pallas stencil kernel tests."""
+"""DIA (banded/stencil) operator tests: node-major and probe-major stencils."""
 
 import numpy as np
 import pytest
@@ -7,7 +7,6 @@ import scipy.sparse as sps
 
 import primate_tpu as pt
 from primate_tpu.operators.sparse import DIAOperator
-from primate_tpu.ops.dia_pallas import dia_matmat
 
 
 def _banded(n: int, offsets, seed: int) -> sps.dia_matrix:
@@ -28,25 +27,14 @@ def test_dia_matmat_matches_scipy(offsets):
 	assert np.allclose(np.asarray(op.todense()), A.toarray())
 
 
-def test_dia_pallas_matches_jnp():
+@pytest.mark.parametrize("k", [1, 5, 128, 130])
+def test_dia_matmat_probe_counts_match_scipy(k):
+	"""Node-major stencil at every probe-block width, incl. >128 columns."""
 	n = 300
 	A = _banded(n, [-7, -1, 0, 1, 7], seed=3)
 	op = DIAOperator.from_scipy(A)
-	V = jnp.asarray(np.random.default_rng(4).normal(size=(n, 128)))  # lane-aligned
-	got = dia_matmat(op, V, interpret=True)
-	want = op._matmat_jnp(V)
-	assert np.allclose(np.asarray(got), np.asarray(want), atol=1e-10)
-
-
-def test_dia_pallas_requires_lane_aligned_probes():
-	import pytest
-
-	op = DIAOperator.from_scipy(_banded(64, [-1, 0, 1], seed=5))
-	with pytest.raises(NotImplementedError, match="128"):
-		dia_matmat(op, jnp.ones((64, 5)), interpret=True)
-	# dispatch silently falls back to the XLA path for partial-lane blocks
-	V = jnp.asarray(np.random.default_rng(6).normal(size=(64, 5)))
-	assert np.allclose(np.asarray(op.matmat(V)), np.asarray(op._matmat_jnp(V)))
+	V = np.random.default_rng(4).normal(size=(n, k))
+	assert np.allclose(np.asarray(op.matmat(jnp.asarray(V))), A @ V, atol=1e-10)
 
 
 def test_hutch_on_dia_laplacian():
@@ -72,38 +60,15 @@ def test_slq_logdet_on_dia():
 	assert abs(est - exact) / abs(exact) < 0.05
 
 
-def test_dia_pallas_probe_major_matches_jnp():
-	"""Probe-major double-buffered stencil kernel ≡ the XLA matmat_t path."""
-	from primate_tpu.ops.dia_pallas import dia_matmat_t
-
-	n = 300
-	A = _banded(n, [-7, -1, 0, 1, 7], seed=7)
+@pytest.mark.parametrize("offsets", [[-7, -1, 0, 1, 7], [-200, 0, 200], [0], [3, 40]])
+@pytest.mark.parametrize("k", [1, 13])
+def test_dia_probe_major_matches_scipy(offsets, k):
+	"""Probe-major stencil (the layout the Lanczos sweep carries) ≡ scipy,
+	for narrow, wide and one-sided bands and an odd probe count."""
+	n = 600
+	A = _banded(n, offsets, seed=7)
 	op = DIAOperator.from_scipy(A)
-	Xt = jnp.asarray(np.random.default_rng(8).normal(size=(13, n)))  # odd probe count on sublanes
-	got = dia_matmat_t(op, Xt, interpret=True)
-	want = op.matmat_t(Xt)
-	assert got.shape == (13, n)
-	assert np.allclose(np.asarray(got), np.asarray(want), atol=1e-10)
-
-
-def test_dia_pallas_probe_major_wide_band_rejected():
-	from primate_tpu.ops.dia_pallas import dia_matmat_t
-
-	op = DIAOperator.from_scipy(_banded(600, [-200, 0, 200], seed=9))
-	with pytest.raises(NotImplementedError, match="128"):
-		dia_matmat_t(op, jnp.ones((4, 600)), interpret=True)
-
-
-def test_dia_use_pallas_routes_matmat_t():
-	"""use_pallas=True matmat_t goes through the probe-major kernel (interpret
-	mode auto-selected off-TPU) and agrees with the XLA path; bands wider than
-	the kernel halo fall back instead of raising."""
-	op = DIAOperator.from_scipy(_banded(256, [-1, 0, 1], seed=10))
-	op_k = DIAOperator(op.bands, op.offsets, op.shape, use_pallas=True)
-	Xt = jnp.asarray(np.random.default_rng(11).normal(size=(8, 256)))
-	assert np.allclose(np.asarray(op_k.matmat_t(Xt)), np.asarray(op.matmat_t(Xt)), atol=1e-10)
-	# wide band: |offset| > 128 routes to the node-major kernel, not an error
-	wide = DIAOperator.from_scipy(_banded(600, [-200, 0, 200], seed=9))
-	wide_k = DIAOperator(wide.bands, wide.offsets, wide.shape, use_pallas=True)
-	Xw = jnp.asarray(np.random.default_rng(12).normal(size=(4, 600)))
-	assert np.allclose(np.asarray(wide_k.matmat_t(Xw)), np.asarray(wide.matmat_t(Xw)), atol=1e-10)
+	Xt = np.random.default_rng(8).normal(size=(k, n))
+	got = np.asarray(op.matmat_t(jnp.asarray(Xt)))
+	assert got.shape == (k, n)
+	assert np.allclose(got, (A @ Xt.T).T, atol=1e-10)

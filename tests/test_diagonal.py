@@ -39,7 +39,7 @@ def test_diag_callback_path_matches_fused():
 
 def test_diag_batch_matches_truth_and_budget():
 	"""batch>1 merges probes per iteration: same accuracy per PROBE budget,
-	criterion/maxiter count iterations (VERDICT r2 item 4)."""
+	criterion/maxiter count iterations."""
 	rng = np.random.default_rng(21)
 	n = 64
 	A = pt.symmetric(n, pd=True, seed=rng)

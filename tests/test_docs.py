@@ -1,4 +1,4 @@
-"""Pin the hand-maintained API docs to the code (VERDICT r4 item 6).
+"""Pin the hand-maintained API docs to the code.
 
 ``docs/api.md`` is the reference-parity map the judge reads; a public symbol
 missing from it is a silent doc gap. Every ``__all__`` entry of the top-level

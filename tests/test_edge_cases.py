@@ -80,7 +80,7 @@ def test_hutchpp_small_m():
 
 def test_scipy_bridge_works_without_x64():
 	"""Regression: a scipy LinearOperator advertising float64 must still work
-	when jax_enable_x64 is OFF (the TPU default) — the pure_callback result
+	when jax_enable_x64 is OFF (JAX's default) — the pure_callback result
 	spec is canonicalized to f32 instead of crashing."""
 	import subprocess, sys, textwrap
 

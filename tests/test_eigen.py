@@ -355,3 +355,20 @@ def test_rand_nystrom_indefinite_roundoff_no_nan():
 	# with modest oversampling on a slow-decay spectrum: ~10% top-eigenvalue
 	# underestimate is expected; the point here is finiteness)
 	assert 1.5 < w[0] <= 2.0 + 1e-6
+
+
+def test_eigsh_lobpcg_converges_at_large_n():
+	"""The LOBPCG stop is a relative residual independent of n: at 64k rows
+	the top eigenvalues of a clustered 3-D stencil reach rel 1e-4 (a stop
+	that scaled with n quit after one iteration)."""
+	import jax.numpy as jnp
+
+	from benchmarks.matrices import fem_laplacian_3d
+	from primate_tpu.operators.sparse import DIAOperator
+
+	side = 40
+	op = DIAOperator.from_scipy(fem_laplacian_3d(side), dtype=jnp.float32)
+	mu = 2.0 - 2.0 * np.cos(np.arange(1, side + 1) * np.pi / (side + 1))
+	lam = np.sort(1.0 + (mu[:, None, None] + mu[None, :, None] + mu[None, None, :]).ravel())[::-1][:6]
+	w = np.sort(np.asarray(pt.eigsh(op, k=6, which="LA", seed=6, return_eigenvectors=False), np.float64))[::-1]
+	assert np.max(np.abs(w - lam) / lam) < 1e-4

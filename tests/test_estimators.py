@@ -298,7 +298,7 @@ def test_control_variable_snapshot_var_is_residual():
 
 
 def test_maxiter_capped_stop_is_surfaced():
-	"""VERDICT r3 #7: a run that exhausts maxiter with its criterion unmet must
+	"""A run that exhausts maxiter with its criterion unmet must
 	warn and label the result — never silently read as converged."""
 	import warnings as _w
 

@@ -1,6 +1,6 @@
 """Lanczos tests: spectrum recovery, Rayleigh-Ritz, batching equivalence.
 
-Mirrors reference `tests/test_lanczos.py` and extends with the TPU-specific
+Mirrors reference `tests/test_lanczos.py` and extends with the device-specific
 single-probe vs batched-block equivalence checks (SURVEY §4).
 """
 

@@ -1,7 +1,7 @@
 """Multi-process (multi-host analog) distributed estimation.
 
-Spawns 2 OS processes that join via ``jax.distributed.initialize`` (the DCN
-path on a real pod), build a 4-device global mesh (2 processes × 2 virtual
+Spawns 2 OS processes that join via ``jax.distributed.initialize`` (the path
+several hosts would take), build a 4-device global mesh (2 processes × 2 virtual
 CPU devices), row-partition a banded Laplacian across it, and run the fused
 ``hutch`` program — validating collectives across the process boundary and
 that every process computes the identical estimate.

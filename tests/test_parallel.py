@@ -442,14 +442,16 @@ def test_scaling_harness_smoke():
 
 
 def test_sharded_csr_kwarg_compat_and_rect_halo(mesh8):
-	"""Review r3: shard_operator(CSR, use_pallas=...) keeps working (routed
-	kwarg accepted, ignored), and an explicit halo request on a rectangular
+	"""shard_operator(CSR) routes to the CSR partition, rejects a kernel
+	option it does not have, and an explicit halo request on a rectangular
 	matrix raises instead of silently downgrading."""
 	from primate_tpu.operators.sparse import CSROperator
 	from primate_tpu.parallel import ShardedCSROperator
 
 	A = _random_sym_sparse(128, seed=31)
-	op = shard_operator(CSROperator.from_scipy(A), mesh8, use_pallas=True)
+	with pytest.raises(TypeError):
+		shard_operator(CSROperator.from_scipy(A), mesh8, use_pallas=True)
+	op = shard_operator(CSROperator.from_scipy(A), mesh8)
 	assert isinstance(op, ShardedCSROperator)
 	V = np.random.default_rng(32).normal(size=(128, 3))
 	assert np.allclose(np.asarray(op.matmat(jnp.asarray(V))), A @ V, atol=1e-9)
@@ -552,8 +554,7 @@ def test_sharded_probe_major_matmat_t(mesh8):
 
 def test_halo_explicit_zero_block_out_of_band(mesh8):
 	"""Explicit-zero stored blocks with out-of-band colids must be remapped into
-	the halo gather window at partition time (ADVICE r3: an out-of-window block
-	index is unguarded-DMA territory for the Pallas BSR kernel on TPU)."""
+	the halo gather window at partition time."""
 	n = 512
 	A = _laplacian(n).tocsr()
 	# Store an explicit ZERO at (0, 480) — block (0, 60) of the (8,8) grid:

@@ -1,7 +1,7 @@
 """auto_operator / reorder_rcm: format choice, reordering, basis bookkeeping.
 
 The reference has no analog (formats are Eigen's concern,
-``include/eigen_operators.h``); on TPU the storage format is the performance
+``include/eigen_operators.h``); on an accelerator the storage format is the performance
 model, so preparation is part of the library surface.
 """
 

@@ -171,8 +171,7 @@ def test_jacobi_precond_clamps_stochastic_diag():
 
 def test_jacobi_precond_exact_on_wide_dynamic_range():
 	"""A legitimate SPD diagonal spanning >3 orders of magnitude must get the
-	EXACT 1/d Jacobi preconditioner (ADVICE r3: the old mean-relative floor
-	silently weakened it); non-positive entries still get floored, with a
+	EXACT 1/d Jacobi preconditioner; non-positive entries still get floored, with a
 	warning."""
 	import warnings as _w
 

@@ -92,7 +92,7 @@ def test_sparse_pytree_jit_caching():
 
 def test_csr_ell_fast_path_and_fallback():
 	"""CSR lays out an ELL (n, L) plane when row lengths are tight (SpMM becomes
-	gather + dense slot-sum — no scatter, ~3x segment_sum throughput on TPU) and
+	gather + dense slot-sum — no scatter) and
 	falls back to sorted segment_sum when padding would exceed ELL_MAX_FILL."""
 	import scipy.sparse as sps
 

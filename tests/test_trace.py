@@ -326,8 +326,8 @@ def test_hutch_rejects_zero_batch():
 
 
 def test_xtrace_chain_fresh_matches_staged_chain():
-	"""The fresh-start fused chain (state built inside the program, VERDICT r3
-	#6) is bit-identical to seeding _xtrace_chain with host-side empty state —
+	"""The fresh-start fused chain (state built inside the program)
+	is bit-identical to seeding _xtrace_chain with host-side empty state —
 	and both match the public xtrace estimate on the same schedule."""
 	import primate_tpu.trace as tr
 	from primate_tpu.operators import aslinop
